@@ -1,5 +1,5 @@
 """Child process for the TRUE multi-process weak-scaling measurement
-(benchmarks/weak_scaling_mp.py — VERDICT r2 weak #7).
+(benchmarks/weak_scaling_mp.py).
 
 Runs as ``python _ws_child.py <pid> <nproc> <port> <rows_per_proc> <nx>
 <solver>`` with one virtual CPU device per process, joined over gloo

@@ -3,7 +3,7 @@
 operator at fixed DoF per device (BASELINE: >= 75% weak-scaling efficiency
 for GMRES/eigs on a 10M-DoF partitioned Poisson at >= 2 hosts).
 
-Runs on whatever devices are visible (real TPU slice, or a virtual CPU mesh
+Runs on whatever devices are visible (several GPUs, or a virtual CPU mesh
 via XLA_FLAGS=--xla_force_host_platform_device_count=N for plumbing checks).
 Prints per-device-count timings and parallel efficiency.
 """

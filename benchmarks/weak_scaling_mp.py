@@ -1,6 +1,6 @@
 """TRUE 2-process weak-scaling measurement over gloo collectives
-(VERDICT r2 item 3: the only real-collective scaling measurement this
-single-chip environment permits).
+(the only real-collective scaling measurement a single CPU host
+permits).
 
 Fixed work per process (rows_per_proc x nx Poisson rows), 1 vs 2 OS
 processes joined by ``jax.distributed`` + gloo.  Every process is pinned
@@ -115,7 +115,7 @@ def _stats(times):
 
 
 def run_reconcile(args):
-    """VERDICT r4 weak #5: run BOTH baselines — direct (one solo job,
+    """Run BOTH baselines — direct (one solo job,
     idle machine) and concurrency-matched (N independent jobs
     simultaneously) — against the same N-process gloo job at one common
     size, and report median +/- IQR for every side with efficiencies
@@ -127,9 +127,9 @@ def run_reconcile(args):
     direct ratio folds core oversubscription of the N-process job into
     'communication' (pessimistic), the matched ratio gives both sides the
     same core contention but lets the communicating job amortize
-    replicated work (optimistic).  Real ICI communication cost lies
-    between; on TPU hardware the gap closes because processes do not share
-    a memory controller."""
+    replicated work (optimistic).  The real communication cost lies
+    between; on separate devices the gap closes because processes do not
+    share a memory controller."""
     results = {"ts": time.strftime("%Y-%m-%d %H:%M:%S"),
                "probe": "weak_scaling_reconcile",
                "cores": os.cpu_count(),
@@ -179,7 +179,7 @@ def main():
     ap.add_argument("--reconcile", action="store_true",
                     help="run BOTH direct and concurrency-matched "
                          "baselines at one size, report median±IQR, cap "
-                         "efficiencies at 1.0 (VERDICT r4 weak #5)")
+                         "efficiencies at 1.0")
     args = ap.parse_args()
     if args.reconcile:
         run_reconcile(args)

@@ -2,7 +2,7 @@
 """Linearized Ginzburg-Landau: leading eigenpairs of the exponential
 propagator via time-stepper Arnoldi + Krylov-Schur.
 
-TPU-native counterpart of the reference's flagship example
+Counterpart of the reference's flagship example
 (reference: example/ginzburg_landau/main.f90): nx = 512, L = 200,
 tau time horizon, direct and adjoint spectra, spectrum saved as ``.npy``
 (``save_eigenspectrum``).
@@ -31,11 +31,14 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", jax.default_backend() != "tpu")
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     import lightkrylov_tpu as lk
     from lightkrylov_tpu.models import GinzburgLandau, GLPropagator
+    from lightkrylov_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     lk.logger_setup()
     lk.greetings()

@@ -2,7 +2,7 @@
 """Partitioned-Poisson eigenanalysis — BASELINE config 5.
 
 Row-shards the 2D Poisson operator over all visible devices (halo exchange
-over ICI via ppermute), runs thick-restart Lanczos (``eighs``) for the
+between neighbouring devices via ppermute), runs thick-restart Lanczos (``eighs``) for the
 leading eigenvalues, and validates against the closed-form spectrum.
 At full scale (--n 3162) this is the 10M-DoF configuration.
 
@@ -30,8 +30,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
+    from lightkrylov_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import lightkrylov_tpu as lk
     from lightkrylov_tpu.models import poisson2d_eigvals
     from lightkrylov_tpu.parallel import (
@@ -44,7 +48,7 @@ def main():
     lk.logger_setup()
     mesh = make_mesh()
     n = args.n - args.n % mesh.devices.size  # divisible rows
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = jnp.float64
     op = ShardedPoisson2D(n, n, mesh=mesh, dtype=dtype)
     print(f"devices={mesh.devices.size}  grid={n}x{n}  dof={n * n / 1e6:.2f}M  "
           f"dtype={np.dtype(dtype).name}")

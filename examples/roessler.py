@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Roessler system: chaotic attractor, Newton-Krylov UPO search, OTD modes.
 
-TPU-native counterpart of the reference example
+Counterpart of the reference example
 (reference: example/roessler/main.f90 + roessler_OTD.f90):
 1. integrate the chaotic attractor,
 2. converge the period-1 unstable periodic orbit by Newton-GMRES shooting
@@ -28,8 +28,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", jax.default_backend() != "tpu")
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
+
+    from lightkrylov_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import lightkrylov_tpu as lk
     from lightkrylov_tpu.models import (

@@ -1,6 +1,6 @@
-"""lightkrylov_tpu — a TPU-native Krylov subspace framework.
+"""lightkrylov_tpu — a Krylov subspace framework in JAX for GPUs.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of
+Brand-new JAX/XLA implementation with the capabilities of
 nekStab/LightKrylov (reference: src/LightKrylov.fypp:89-131): Krylov
 factorizations (Arnoldi, Lanczos, Golub-Kahan bidiagonalization), spectral
 analysis (``eigs`` with Krylov-Schur restart, ``eighs``, ``svds``), linear
@@ -10,7 +10,7 @@ solver for fixed points and periodic orbits.
 
 Unlike the reference — which delegates all parallelism to user-supplied MPI
 code — vectors here are sharded pytrees over a ``jax.sharding.Mesh``,
-operators are Pallas stencil/SpMV kernels with ICI halo exchange, and every
+operators are XLA stencil/SpMV products with halo exchange, and every
 Gram-Schmidt pass batches its inner products into a single fused all-reduce.
 
 This umbrella module re-exports the public API, mirroring the reference's
@@ -116,6 +116,6 @@ from .utils.timer import global_watch, set_timing, time_lightkrylov, timed
 
 def greetings() -> str:
     """Version banner (reference: ``greetings()``, LightKrylov.fypp:140-169)."""
-    banner = f"lightkrylov_tpu v{__version__} — TPU-native Krylov subspace methods"
+    banner = f"lightkrylov_tpu v{__version__} — Krylov subspace methods in JAX"
     logger.log_message(banner)
     return banner

@@ -1,6 +1,6 @@
 """Machine-precision tolerances and process-level context.
 
-TPU-native counterpart of the reference's ``LightKrylov_Constants``
+Counterpart of the reference's ``LightKrylov_Constants``
 (reference: src/Constants.f90:16-56). The reference defines, per scalar kind,
 
     atol = 10 ** (-precision(1.0))      # 1e-6 single / 1e-15 double

@@ -1,6 +1,6 @@
 """Krylov processes: orthogonalization, QR, Arnoldi/Lanczos/Golub-Kahan
 factorizations and the Krylov-Schur restart
-(TPU-native counterpart of ``src/Krylov/`` — BaseKrylov.fypp:38-52)."""
+(counterpart of ``src/Krylov/`` — BaseKrylov.fypp:38-52)."""
 
 from .gram_schmidt import double_gram_schmidt_step, orthogonalize_against_basis
 from .qr import qr, qr_pivoted, cholesky_qr2

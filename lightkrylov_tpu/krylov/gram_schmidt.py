@@ -1,12 +1,12 @@
 """Classical Gram-Schmidt with re-orthogonalization (CGS2).
 
-TPU-native counterpart of ``src/Krylov/gram_schmidt.fypp``: classical GS
+Counterpart of ``src/Krylov/gram_schmidt.fypp``: classical GS
 projection of a vector (or block) against an orthonormal basis —
 ``proj = innerprod(X, y); y -= X proj`` (gram_schmidt.fypp:141-146,187-192) —
 and ``double_gram_schmidt_step`` = two passes with coefficients summed
 (CGS2, gram_schmidt.fypp:38-49,85-97).
 
-The TPU design point (SURVEY.md §2 item 3): the k inner products of one pass
+The design point (SURVEY.md §2 item 3): the k inner products of one pass
 are batched into a *single* reshaped matmul via :func:`vectors.innerprod`,
 so on a sharded mesh each CGS pass costs exactly one fused all-reduce —
 the "low-synch" property the reference obtains only implicitly through
@@ -36,11 +36,10 @@ __all__ = [
 DEFAULT_CHUNK: int | None = 8
 
 #: Prefix chunking only engages for buffers of at least this many columns:
-#: each chunk costs an HLO conditional whose scheduling overhead on TPU
-#: (~0.1 ms class) outweighs the skipped traffic for small buffers — at
-#: kdim=30 the monolithic GMRES cycle measured 402 ms vs 509 ms chunked
-#: AFTER the VPU rank-k update fix (results_tpu.json probe "cgs_cost"),
-#: while for kdim >= ~64 the saved traffic dominates the fixed cond cost.
+#: each chunk costs an HLO conditional whose fixed overhead outweighs the
+#: skipped traffic for small buffers, while for large kdim the saved
+#: traffic dominates.  This value and DEFAULT_CHUNK were tuned on an earlier
+#: accelerator and are not yet measured on a GPU (ROADMAP A4).
 MIN_PREFIX_COLS: int = 48
 
 #: Sentinel distinguishing "chunk not given" (-> DEFAULT_CHUNK) from an
@@ -118,7 +117,7 @@ def double_gram_schmidt_step(y, X, return_info: bool = False, k=None,
 
     Two passes of classical Gram-Schmidt restore orthogonality to machine
     precision ("twice is enough"), while keeping each pass a single batched
-    reduction — the TPU-friendly alternative to modified Gram-Schmidt's k
+    reduction — the bandwidth-friendly alternative to modified Gram-Schmidt's k
     sequential dots.
 
     Returns ``(y_orth, proj)`` with ``proj`` the summed coefficients.  With

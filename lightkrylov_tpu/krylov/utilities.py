@@ -1,6 +1,6 @@
 """Krylov basis utilities.
 
-TPU-native counterpart of ``src/Krylov/utilities.fypp``: column permutation
+Counterpart of ``src/Krylov/utilities.fypp``: column permutation
 ``permcols`` and its inverse ``invperm`` (utilities.fypp:12-27),
 ``initialize_krylov_subspace`` (zero buffer + copy + orthonormalize seed
 block, :34-48), ``initialize_random_orthonormal_basis`` (:56-64),
@@ -66,7 +66,7 @@ def initialize_random_orthonormal_basis(key, x_template, k: int):
     """Random orthonormal k-column basis (reference: utilities.fypp:56-64).
 
     A Gaussian basis is well-conditioned with overwhelming probability, so
-    the MXU-friendly CholeskyQR2 path applies; the CGS2 fallback inside
+    the matmul-based CholeskyQR2 path applies; the CGS2 fallback inside
     :func:`orthonormalize_basis` covers the measure-zero remainder."""
     X = vectors.rand_basis(key, vectors.zeros_basis(x_template, k))
     return orthonormalize_basis(X, key=jax.random.fold_in(key, 1),
@@ -77,7 +77,7 @@ def orthonormalize_basis(X, key=None, method: str = "cgs2"):
     """QR wrapper returning only Q (reference: utilities.fypp:72-82).
 
     ``method="cholqr2"`` uses :func:`~lightkrylov_tpu.krylov.cholesky_qr2`
-    — two MXU matmul passes and one fused all-reduce per pass instead of
+    — two matmul passes and one fused all-reduce per pass instead of
     the k-step CGS2 column loop; it falls back to CGS2 automatically when
     the basis is numerically rank-deficient (Cholesky breakdown).
     """

@@ -1,6 +1,6 @@
 """Abstract linear operators as pytree-registered callables.
 
-TPU-native counterpart of the reference's abstract operator layer
+Counterpart of the reference's abstract operator layer
 (reference: src/AbstractTypes/AbstractLinops.fypp).  The reference defines an
 abstract ``abstract_linop`` with deferred ``matvec``/``rmatvec``
 (AbstractLinops.fypp:58-87) plus an operator algebra: ``adjoint_linop``
@@ -9,7 +9,7 @@ abstract ``abstract_linop`` with deferred ``matvec``/``rmatvec``
 (:199-258), the ``abstract_exptA_linop`` carrying a horizon ``tau``
 (:105-123) and a concrete GEMV-backed ``dense_linop`` (:264-271,607-660).
 
-Design inversion for TPU: operators are small immutable Python objects
+Design inversion for XLA: operators are small immutable Python objects
 registered as **pytrees**, so a whole operator (including its parameter
 arrays) can be closed over by ``jax.jit``/``lax.scan`` and sharded with the
 rest of the computation.  Where the reference forces users to hand-write
@@ -105,7 +105,7 @@ class LinearOperator:
 
         Default: ``jax.vmap`` over :meth:`matvec` — XLA batches the p
         matvecs into one kernel (for dense operators this becomes a single
-        MXU GEMM instead of p GEMVs).  Subclasses with a cheaper batched
+        GEMM instead of p GEMVs).  Subclasses with a cheaper batched
         form may override.  Used by the block Krylov methods
         (reference: the per-column matvec loop of block Arnoldi,
         arnoldi.fypp:34-73, which the abstract Fortran design cannot batch).
@@ -233,11 +233,14 @@ class DenseOperator(LinearOperator):
         self.data = jnp.asarray(data)
         self.is_hermitian = is_hermitian
 
+    # HIGHEST: a default-precision f32 product may round to TF32 on a GPU,
+    # far below the accuracy the solvers and their anchors assume.
     def matvec(self, x):
-        return self.data @ x
+        return jnp.matmul(self.data, x, precision=jax.lax.Precision.HIGHEST)
 
     def rmatvec(self, y):
-        return self.data.conj().T @ y
+        return jnp.matmul(self.data.conj().T, y,
+                          precision=jax.lax.Precision.HIGHEST)
 
 
 class DiagonalOperator(LinearOperator):

@@ -1,5 +1,5 @@
 """Model operator families: the reference's example/test physics rebuilt
-TPU-first (Toeplitz fixtures, 2D Poisson + block-Jacobi, convection-
+as pytree operators (Toeplitz fixtures, 2D Poisson + block-Jacobi, convection-
 diffusion, linearized Ginzburg-Landau + time-stepper propagator, Roessler
 fixed-point/UPO systems)."""
 

@@ -15,7 +15,7 @@ Validation anchors (BASELINE.md): instantaneous eigenvalue real part
 (0.0, 0.149141556) on the period-1 UPO
 (reference: roessler_OTD.f90:31-32).
 
-Generic TPU-first implementation: the Jacobian action is exact ``jax.jvp``
+Generic implementation: the Jacobian action is exact ``jax.jvp``
 of any user ``rhs`` (the reference hand-codes it), the whole propagation is
 one ``lax.scan`` of fused RK4 steps over the combined (x, U) state, and the
 basis is kept orthonormal by a QR-free Gram-Schmidt projection built into
@@ -41,10 +41,9 @@ def _jac_apply(rhs, x, U):
 def otd_rhs(rhs, x, U):
     """Right-hand side of the coupled (x, U) OTD system (gauge A = 0).
 
-    The tiny reduced-operator contractions run at HIGHEST precision:
-    default TPU MXU f32 is bf16-pass arithmetic whose per-step error
-    compounds over the 10^4-step integrations (4e-4 eigenvalue drift on
-    chip vs 1e-8 on CPU before the fix)."""
+    The tiny reduced-operator contractions run at HIGHEST precision: a
+    default-precision f32 matmul may round to TF32 on a GPU, and that
+    per-step error compounds over the 10^4-step integrations."""
     P = jax.lax.Precision.HIGHEST
     fx = rhs(x)
     JU = _jac_apply(rhs, x, U)
@@ -56,9 +55,9 @@ def otd_rhs(rhs, x, U):
 def _reorthonormalize(U):
     """Explicit modified Gram-Schmidt over the r (static, tiny) columns.
 
-    vdot/axpy are elementwise VPU ops at full f32 — unlike
-    ``jnp.linalg.qr``, whose internal matmuls run at default MXU precision
-    on TPU and drift over long integrations.  Classical direction-keeping
+    vdot/axpy are elementwise ops at full f32 — unlike
+    ``jnp.linalg.qr``, whose internal matmuls run at the default matmul
+    precision (TF32 on a GPU) and drift over long integrations.  Classical direction-keeping
     also preserves basis continuity without a sign fix."""
     r = U.shape[1]
     cols = []

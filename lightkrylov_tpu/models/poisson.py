@@ -6,12 +6,11 @@ The reference exercises CG on a 2D Poisson operator with a block-Jacobi
 unit-square 5-point Laplacian to 1e-10.
 
 The state vector is the 2D interior grid array ``(ny, nx)`` — the natural
-layout for the XLA/Pallas stencil and for row-partitioned sharding over a
-device mesh (halo exchange along the leading axis).  ``matvec`` here is the
-pure-XLA roll/pad formulation; :mod:`lightkrylov_tpu.ops.pallas.stencil`
-provides the hand-tiled Pallas kernel and
-:mod:`lightkrylov_tpu.parallel.stencil` the multi-chip halo-exchange
-version — all three are interchangeable operators with identical semantics.
+layout for the stencil and for row-partitioned sharding over a device mesh
+(halo exchange along the leading axis).  ``matvec`` here is the pad/slice
+formulation, which XLA fuses into one pass that reads ``u`` once and writes
+the result once; :mod:`lightkrylov_tpu.parallel.stencil` has the
+multi-device halo-exchange version with identical semantics.
 """
 
 from __future__ import annotations
@@ -108,8 +107,7 @@ class BlockJacobiPoisson(LinearOperator):
     PCG test, test/TestSpecialMatrices.f90:29-159).
 
     The block inverse is precomputed once (nx x nx) and applied to all ny
-    rows as one batched matmul — an MXU-shaped operation instead of ny
-    sequential Thomas solves."""
+    rows as one batched matmul instead of ny sequential Thomas solves."""
 
     _children = ("Binv",)
     _static = ()
@@ -128,7 +126,9 @@ class BlockJacobiPoisson(LinearOperator):
         self.Binv = jnp.asarray(np.linalg.inv(B), op.dtype_)
 
     def matvec(self, r):
-        return r @ self.Binv.T
+        # HIGHEST: a TF32-rounded preconditioner would stop being symmetric
+        # to f32 accuracy, which PCG relies on
+        return jnp.matmul(r, self.Binv.T, precision=jax.lax.Precision.HIGHEST)
 
     def rmatvec(self, r):
         return self.matvec(r)

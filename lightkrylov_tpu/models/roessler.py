@@ -12,7 +12,7 @@ Jacobian action is ``[exp(TJ) - I] dx + f(X(T)) dT`` with the phase
 condition ``<dx, f(X(0))>`` in the period row (roessler.f90:282-330
 ``linear_map``).
 
-TPU design: the flow map is a jitted fixed-step RK4 ``lax.scan`` with
+Design: the flow map is a jitted fixed-step RK4 ``lax.scan`` with
 ``dt = T/n_steps`` — *differentiable in both the state and the period* — so
 the tangent propagation ``exp(TJ) dx + f(X(T)) dT`` is one exact ``jax.jvp``
 through the integrator rather than the reference's hand-coded coupled

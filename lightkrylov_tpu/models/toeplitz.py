@@ -20,7 +20,7 @@ __all__ = ["TridiagToeplitz", "toeplitz_eigvals"]
 class TridiagToeplitz(LinearOperator):
     """Tridiagonal Toeplitz operator: ``a`` on the diagonal, ``b`` on the
     subdiagonal, ``c`` on the superdiagonal, applied matrix-free with
-    shifts (VPU-friendly; no materialized matrix)."""
+    shifts (elementwise; no materialized matrix)."""
 
     _children = ("a", "b", "c")
     _static = ("n", "is_hermitian")

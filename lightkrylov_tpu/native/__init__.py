@@ -2,11 +2,11 @@
 
 Builds ``bell_assembler.cpp`` into a shared object on first use (cached next
 to the source) and exposes it via ctypes.  Falls back transparently to the
-numpy assembly path in :mod:`lightkrylov_tpu.ops.pallas.spmv` when a
+numpy assembly path in :mod:`lightkrylov_tpu.ops.bell` when a
 compiler is unavailable.
 
 This mirrors the reference's native substrate split: compute on the
-accelerator (there: BLAS/LAPACK; here: Pallas/XLA), heavy host-side data
+accelerator (there: BLAS/LAPACK; here: XLA), heavy host-side data
 preparation in compiled native code.
 """
 
@@ -68,7 +68,7 @@ def bell_assemble(csr, bm: int, bn: int, dtype=np.float32):
     """CSR -> (data, cols, K) Block-ELL arrays via the native assembler.
 
     ``csr`` is a ``scipy.sparse.csr_matrix``; returns numpy arrays with the
-    layout contract of :mod:`lightkrylov_tpu.ops.pallas.spmv`.
+    layout contract of :mod:`lightkrylov_tpu.ops.bell`.
     Raises ``RuntimeError`` if the native library is unavailable.
     """
     lib = _load()

@@ -1,13 +1,13 @@
 // Native Block-ELL assembler: CSR -> (data, cols) block layout.
 //
 // Host-side runtime tier of the operator layer: converting a 10M-DoF CSR
-// operator to the TPU-native Block-ELL layout is pure pointer-chasing that
+// operator to the Block-ELL layout is pure pointer-chasing that
 // the numpy path does with O(nnz) fancy indexing and multiple temporary
 // arrays; this C++ path is a single streaming pass per stage and ~10x
 // faster at large scale. Loaded via ctypes (lightkrylov_tpu/native/__init__.py)
 // with a transparent numpy fallback when the shared object is unavailable.
 //
-// Layout contract (must match ops/pallas/spmv.py):
+// Layout contract (must match ops/bell.py):
 //   data: (nbr, K, bm, bn) row-major; cols: (nbr, K) int32, zero-padded;
 //   padding slots point at block-column 0 with all-zero values.
 

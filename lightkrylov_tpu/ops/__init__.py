@@ -1,5 +1,7 @@
-"""Compute kernels (Pallas TPU native tier + XLA fallbacks)."""
+"""Sparse operator kernels (plain XLA)."""
 
-from . import pallas
+from .bell import (BellMatrix, BellOperator, bell_from_scipy, bell_rspmv,
+                   bell_spmv)
 
-__all__ = ["pallas"]
+__all__ = ["BellMatrix", "BellOperator", "bell_from_scipy", "bell_rspmv",
+           "bell_spmv"]

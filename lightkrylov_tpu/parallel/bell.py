@@ -1,14 +1,13 @@
 """Row-partitioned Block-ELL SpMV over a 1D device mesh.
 
 The general-sparse half of SURVEY.md §2 parallelism item 2 ("row/block-
-partitioned CSR/BSR SpMV ... with halo exchange over ICI"): block-rows of
-the Block-ELL matrix (see :mod:`lightkrylov_tpu.ops.pallas.spmv`) are
-partitioned over the mesh; the input vector is row-partitioned the same
-way, all-gathered over ICI inside ``shard_map`` (a general sparse matrix
-has unbounded column reach, so the "halo" is the full vector — for
-bounded-bandwidth operators use the stencil operators, whose halo is one
-row), and each device runs the Pallas Block-ELL kernel on its local block
-rows.  The output rows come out naturally partitioned, so Krylov solvers
+partitioned CSR/BSR SpMV ... with halo exchange"): block-rows of the
+Block-ELL matrix (see :mod:`lightkrylov_tpu.ops.bell`) are partitioned over
+the mesh; the input vector is row-partitioned the same way and
+all-gathered inside ``shard_map`` (a general sparse matrix has unbounded
+column reach, so the "halo" is the full vector — for bounded-bandwidth
+operators use the stencil operators, whose halo is one row), and each
+device runs the Block-ELL product on its local block rows.  The output rows come out naturally partitioned, so Krylov solvers
 compose without any resharding.
 
 The reference delegates all of this to user MPI code
@@ -24,22 +23,22 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..linops import LinearOperator
-from ..ops.pallas.spmv import BellMatrix, bell_spmv
+from ..ops.bell import BellMatrix, bell_rspmv, bell_spmv
 from .mesh import distribute
 
 __all__ = ["ShardedBellOperator"]
 
 
-def _bell_shard(data, cols, x_local, *, axis, n_logical, interpret):
-    """Per-shard body: all-gather x over ICI, run the local Block-ELL
-    kernel on this shard's block-rows (column indices stay GLOBAL — the
-    gathered x covers the full column space)."""
+def _bell_shard(data, cols, x_local, *, axis, n_logical):
+    """Per-shard body: all-gather x, run the local Block-ELL product on
+    this shard's block-rows (column indices stay GLOBAL — the gathered x
+    covers the full column space)."""
     x_full = jax.lax.all_gather(x_local, axis, tiled=True)
     bn = data.shape[3]
     n_p = -(-n_logical // bn) * bn
     if n_p != x_full.shape[0]:
         x_full = jnp.pad(x_full, (0, n_p - x_full.shape[0]))
-    return bell_spmv(data, cols, x_full, interpret=interpret)
+    return bell_spmv(data, cols, x_full)
 
 
 class ShardedBellOperator(LinearOperator):
@@ -47,25 +46,25 @@ class ShardedBellOperator(LinearOperator):
 
     Built from a host-side :class:`BellMatrix` whose global shape is
     square and whose row count divides evenly over the mesh (pad the
-    block-row count to a multiple of ``8 * mesh size`` at assembly time).
+    block-row count to a multiple of the mesh size at assembly time).
     The state vector is the global ``(n,)`` array row-partitioned over the
-    mesh; ``matvec`` is one ``all_gather`` + the local Pallas kernel.
+    mesh; ``matvec`` is one ``all_gather`` + the local Block-ELL product.
     """
 
     _children = ("data", "cols")
-    _static = ("shape", "nnz", "is_hermitian", "interpret", "mesh", "axis")
+    _static = ("shape", "nnz", "is_hermitian", "mesh", "axis")
 
     def __init__(self, bell: BellMatrix, *, mesh: Mesh,
-                 is_hermitian: bool = False, interpret: bool = False):
+                 is_hermitian: bool = False):
         m, n = bell.shape
         nbr, K, bm, bn = bell.data.shape
         nd = mesh.devices.size
         if m != n:
             raise ValueError(f"ShardedBellOperator requires a square operator, got {bell.shape}")
-        if nbr % (8 * nd):
+        if nbr % nd:
             raise ValueError(
-                f"block-row count {nbr} must divide over {nd} devices in "
-                f"multiples of 8 (the kernel's row-tile); pad at assembly")
+                f"block-row count {nbr} must divide over {nd} devices; "
+                "pad at assembly")
         if m != nbr * bm or n % bn or n % nd:
             raise ValueError(
                 "ShardedBellOperator requires the logical shape to equal the "
@@ -76,7 +75,6 @@ class ShardedBellOperator(LinearOperator):
         self.shape = bell.shape
         self.nnz = bell.nnz
         self.is_hermitian = is_hermitian
-        self.interpret = interpret
         self.data = distribute(bell.data, mesh, P(self.axis, None, None, None))
         self.cols = distribute(bell.cols, mesh, P(self.axis, None))
 
@@ -85,16 +83,13 @@ class ShardedBellOperator(LinearOperator):
         return distribute(x, self.mesh, P(self.axis))
 
     def matvec(self, x):
-        nbr, K, bm, bn = self.data.shape
-        body = partial(_bell_shard, axis=self.axis, n_logical=self.shape[1],
-                       interpret=self.interpret)
+        body = partial(_bell_shard, axis=self.axis, n_logical=self.shape[1])
         mv = jax.shard_map(
             body,
             mesh=self.mesh,
             in_specs=(P(self.axis, None, None, None), P(self.axis, None),
                       P(self.axis)),
             out_specs=P(self.axis),
-            check_vma=False,  # pallas_call has no varying-mesh-axes metadata
         )
         y = mv(self.data, self.cols, x)
         return y[: self.shape[0]] if y.shape[0] != self.shape[0] else y
@@ -105,15 +100,12 @@ class ShardedBellOperator(LinearOperator):
         # A^H y: each shard owns block-ROWS of A, i.e. block-columns of A^H;
         # local transpose contributions are scattered into the full output
         # and summed over shards with one psum, then re-partitioned.
-        nbr, K, bm, bn = self.data.shape
+        bn = self.data.shape[3]
         n_p = -(-self.shape[1] // bn) * bn
 
         def body(data, cols, y_local):
-            contrib = jnp.einsum("rkms,rum->rks",
-                                 data.conj(), y_local.reshape(-1, 1, bm))
-            out = jnp.zeros((n_p // bn, bn), data.dtype)
-            out = out.at[cols.reshape(-1)].add(contrib.reshape(-1, bn))
-            out = jax.lax.psum(out.reshape(-1), self.axis)
+            out = jax.lax.psum(bell_rspmv(data, cols, y_local, n_p),
+                               self.axis)
             # keep my row slice of the summed result (output partitioned)
             nd = jax.lax.axis_size(self.axis)
             idx = jax.lax.axis_index(self.axis)

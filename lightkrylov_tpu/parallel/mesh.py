@@ -1,6 +1,6 @@
 """Device mesh and distribution utilities.
 
-TPU-native replacement for the reference's deliberately-thin MPI layer
+Replacement for the reference's deliberately-thin MPI layer
 (reference: src/Constants.f90:60-100 rank plumbing; src/Utilities/
 Logger.f90:245-276 ``comm_setup`` — the reference never issues a collective
 itself and delegates all distribution to user code, paper/paper.md:35,97,101).
@@ -42,13 +42,13 @@ def comm_setup(coordinator_address: str | None = None,
     """Initialize multi-host JAX (reference: ``comm_setup``,
     Logger.f90:245-276 — MPI init-if-needed + rank capture).
 
-    No-op in single-process mode; on a multi-host slice the standard TPU
-    environment variables make all arguments optional.
+    No-op in single-process mode.  Multi-process runs pass the
+    coordinator address, process count and process id explicitly.
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         # Cross-process collectives on the CPU backend need an explicit
         # implementation (gloo ships with jaxlib); must be selected before
-        # the backend initializes.  Harmless for TPU (per-backend setting).
+        # the backend initializes.  Harmless on GPUs (per-backend setting).
         try:
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         except Exception:  # pragma: no cover - older jaxlib without the flag

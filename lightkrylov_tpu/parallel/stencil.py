@@ -1,10 +1,10 @@
-"""Row-partitioned 2D stencil operators with ICI halo exchange.
+"""Row-partitioned 2D stencil operators with halo exchange.
 
 This is the multi-chip operator tier of SURVEY.md §2 item 2 (and BASELINE
 config 5: 10M-DoF partitioned Poisson eigs): the interior grid is sharded
 along its leading (row) axis over a 1D device mesh; the 5-point matvec runs
 under ``shard_map`` with a one-row halo exchange between neighbouring shards
-expressed as two ``ppermute`` collectives over ICI.
+expressed as two ``ppermute`` collectives between neighbouring devices.
 
 Overlap: the kernel computes the x-direction (halo-free) part of the
 stencil while the halo rows are in flight, then adds the y-direction
@@ -64,26 +64,6 @@ def _stencil_shard(u, *, ihx2, ihy2, axis):
     return out
 
 
-def _stencil_shard_pallas(u, *, ihx2, ihy2, axis, tile, interpret):
-    """Per-shard matvec body running the **Pallas stencil kernel** on the
-    local row block (SURVEY.md §2 parallelism item 2: the kernel tier
-    composed with the mesh tier — VERDICT round 1 missing item 1).
-
-    The local kernel applies the stencil with homogeneous (zero) halo at
-    the block edges, so the neighbouring shards' contributions are exactly
-    the rank-1 corrections ``-ihy2 * halo`` on the first/last local rows —
-    added eagerly after the kernel, which lets XLA overlap the two
-    ``ppermute`` collectives with the kernel's HBM-bound sweep."""
-    from ..ops.pallas.stencil import stencil_matvec
-
-    halo_from_above, halo_from_below = _halo_exchange(u, axis)
-    out = stencil_matvec(u, ihx2=ihx2, ihy2=ihy2, tile=tile,
-                         interpret=interpret)
-    out = out.at[0, :].add(-ihy2 * halo_from_above[0])
-    out = out.at[-1, :].add(-ihy2 * halo_from_below[0])
-    return out
-
-
 class ShardedPoisson2D(LinearOperator):
     """Negative 5-point Laplacian, row-partitioned over a 1D mesh.
 
@@ -94,24 +74,17 @@ class ShardedPoisson2D(LinearOperator):
     """
 
     _children = ()
-    _static = ("nx", "ny", "dtype_", "mesh", "axis", "kernel", "tile",
-               "interpret")
+    _static = ("nx", "ny", "dtype_", "mesh", "axis")
 
     is_hermitian = True
 
     def __init__(self, nx: int, ny: int | None = None, *, mesh: Mesh,
-                 dtype=jnp.float32, kernel: str = "xla", tile: int = 256,
-                 interpret: bool = False):
-        if kernel not in ("xla", "pallas"):
-            raise ValueError(f"kernel must be 'xla' or 'pallas', got {kernel!r}")
+                 dtype=jnp.float32):
         self.nx = nx
         self.ny = ny if ny is not None else nx
         self.dtype_ = np.dtype(dtype)
         self.mesh = mesh
         self.axis = mesh.axis_names[0]
-        self.kernel = kernel
-        self.tile = tile
-        self.interpret = interpret
         if self.ny % mesh.devices.size != 0:
             raise ValueError(
                 f"ny={self.ny} must be divisible by mesh size {mesh.devices.size}")
@@ -130,30 +103,17 @@ class ShardedPoisson2D(LinearOperator):
         return distribute(u, self.mesh, P(self.axis, None))
 
     def matvec(self, u):
-        if self.kernel == "pallas":
-            body = partial(
-                _stencil_shard_pallas,
-                ihx2=1.0 / self.hx**2,
-                ihy2=1.0 / self.hy**2,
-                axis=self.axis,
-                tile=self.tile,
-                interpret=self.interpret,
-            )
-        else:
-            body = partial(
-                _stencil_shard,
-                ihx2=1.0 / self.hx**2,
-                ihy2=1.0 / self.hy**2,
-                axis=self.axis,
-            )
+        body = partial(
+            _stencil_shard,
+            ihx2=1.0 / self.hx**2,
+            ihy2=1.0 / self.hy**2,
+            axis=self.axis,
+        )
         mv = jax.shard_map(
             body,
             mesh=self.mesh,
             in_specs=P(self.axis, None),
             out_specs=P(self.axis, None),
-            # pallas_call cannot declare varying-mesh-axes metadata on its
-            # out_shape yet; skip the vma check for the kernel path
-            check_vma=(self.kernel != "pallas"),
         )
         return mv(u)
 

@@ -1,5 +1,5 @@
 """Iterative solvers: eigs/eighs/svds, gmres/fgmres/cg, kexpm, newton
-(TPU-native counterpart of ``src/IterativeSolvers/`` + ``src/Expm/`` +
+(counterpart of ``src/IterativeSolvers/`` + ``src/Expm/`` +
 ``src/Newton/``)."""
 
 from .gmres import gmres, fgmres

@@ -1,6 +1,6 @@
 """Krylov approximation of the matrix exponential action ``exp(tau A) b``.
 
-TPU-native counterpart of ``src/Expm/ExpmLib.fypp``: incremental Arnoldi
+Counterpart of ``src/Expm/ExpmLib.fypp``: incremental Arnoldi
 with, per step, a dense ``expm`` of the *extended* (k+1) Hessenberg
 ``[[H_k, 0], [beta e_k^T, 0]]``; the approximation is
 ``beta0 * X[:, :k] @ E[:k, 0]`` and the error estimate the magnitude of the
@@ -11,7 +11,7 @@ fixed ``kdim = 30``, ``tol = atol`` configuration behind the
 ``abstract_exptA`` interface (:365-392); block version ``kexpm_mat`` with
 QR of the input block (:234-363).
 
-TPU structure: the whole iteration is one jitted ``lax.while_loop``.  The
+Structure: the whole iteration is one jitted ``lax.while_loop``.  The
 projected exponential is computed on-device (XLA Pade expm) on the
 *zero-padded* (kdim+1)^2 matrix: unfilled rows/columns are zero, so the
 padded matrix is block-diagonal ``diag(Hext_k, 0)`` and its exponential's
@@ -180,14 +180,16 @@ def _kexpm_mat_impl(A, B, tau, tol, kdim, p, transpose):
         E = linalg.expm(jnp.asarray(tau).astype(dt) * Hsq)
         # error estimate = || E[kp : kp+p, :p] @ R0 ||_2 (ExpmLib.fypp:341-350)
         Eblk = jax.lax.dynamic_slice(E, (jnp.int32(kp), jnp.int32(0)), (p, p))
-        err_new = jnp.linalg.norm(Eblk @ R0[:p, :p]).astype(rdt)
+        err_new = jnp.linalg.norm(jnp.matmul(
+            Eblk, R0[:p, :p], precision=jax.lax.Precision.HIGHEST)).astype(rdt)
         E_sq = jnp.where(done, E_sq, E)
         err = jnp.where(done, err, err_new)
         k_used = jnp.where(done, k_used, kp)
         done = done | (err < tol) | (info > 0)
 
     # C = X[:, :kdim+p] @ E[:, :p] @ R0[:p, :p]
-    coeff = E_sq[:, :p] @ R0[:p, :p].astype(dt)  # (kdim+p, p)
+    coeff = jnp.matmul(E_sq[:, :p], R0[:p, :p].astype(dt),
+                       precision=jax.lax.Precision.HIGHEST)  # (kdim+p, p)
     C = vectors.linear_combination(X, coeff)
     return C, err, k_used
 

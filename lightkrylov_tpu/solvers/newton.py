@@ -1,6 +1,6 @@
 """Newton-Krylov solver for fixed points (and periodic orbits).
 
-TPU-native counterpart of ``src/Newton/NewtonKrylov.fypp``: Newton iteration
+Counterpart of ``src/Newton/NewtonKrylov.fypp``: Newton iteration
 on ``F(X) = 0`` with the Jacobian re-linearized each step
 (NewtonKrylov.fypp:346), the Newton system ``J dx = -r`` solved by an
 *injected* linear solver (:349-352), an optional golden-section bisection

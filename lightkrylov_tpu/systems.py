@@ -1,6 +1,6 @@
 """Nonlinear systems F(X) and their Jacobian operators.
 
-TPU-native counterpart of ``src/AbstractTypes/AbstractSystems.fypp``.
+Counterpart of ``src/AbstractTypes/AbstractSystems.fypp``.
 The reference defines an abstract system with deferred
 ``response(vec_in, vec_out, atol)`` (AbstractSystems.fypp:64-86) — note the
 *tolerance* argument so time-stepper responses can integrate adaptively —

@@ -1,5 +1,5 @@
 """Utilities: logging, timing, dense linear algebra, options/metadata
-(TPU-native counterpart of ``src/Utilities/``)."""
+(counterpart of ``src/Utilities/``)."""
 
 from . import linalg, logger, options, timer
 

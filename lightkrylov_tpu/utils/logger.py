@@ -1,6 +1,6 @@
 """Rank-gated logging and the ``info``-flag protocol.
 
-TPU-native counterpart of ``LightKrylov_Logger`` (reference:
+Counterpart of ``LightKrylov_Logger`` (reference:
 src/Utilities/Logger.f90).  The reference wraps ``stdlib_logger`` with
 rank-0-only emission (Logger.f90:36-113) and centralises decoding of every
 routine's integer ``info`` return through ``check_info``

@@ -1,6 +1,6 @@
 """Typed options and metadata records for every solver.
 
-TPU-native counterpart of the reference's ``abstract_opts`` /
+Counterpart of the reference's ``abstract_opts`` /
 ``abstract_metadata`` hierarchy (reference: Utils.fypp:50-76) and the
 per-solver records: ``gmres_*_opts`` (kdim=30, maxiter=10,
 IterativeSolvers.fypp:141-151), ``cg_*_opts`` (maxiter=100, :468-474),
@@ -68,7 +68,7 @@ class EigsOptions:
     ``checkpoint_every``/``checkpoint_path``: serialize the factorization
     state (basis, projected matrix, restart indices, counters) every N
     convergence checks; the solver's ``resume_from=`` argument restores it
-    — relay-wedge insurance the reference lacks (its restart capability is
+    — insurance against lost jobs that the reference lacks (its restart capability is
     algorithmic only; state is never persisted, SURVEY.md §5).
     """
 
@@ -82,8 +82,8 @@ class EigsOptions:
     #: reference's path, IterativeSolvers.fypp:1065); "device" = jitted
     #: Francis QR + inverse-iteration eigvecs (utils/hessenberg.py) fused
     #: into the Arnoldi sweep — per-STEP convergence checks at zero host
-    #: round-trips (real dtypes only); "auto" = device on TPU, host
-    #: elsewhere.  Device mode also runs every RESTART on device: the
+    #: round-trips (real dtypes only); "auto" = device on any
+    #: accelerator, host on the CPU.  Device mode also runs every RESTART on device: the
     #: IRAM exact-shift filter for the default selector, the jitted
     #: Schur + ordschur path (schur_real/ordschur_device) for custom
     #: selectors and the post-restart arrow form; host LAPACK remains the
@@ -98,7 +98,8 @@ class SVDSOptions:
     checkpoint_every: int = 0     # every N convergence checks; 0 = off
     checkpoint_path: str | None = None
     #: projected k x k SVD: "host" LAPACK per check / "device" fused
-    #: on-device per-step checks / "auto" = device on TPU (see EigsOptions)
+    #: on-device per-step checks / "auto" = device on any accelerator,
+    #: host on the CPU (see EigsOptions)
     projected: str = "auto"
 
 

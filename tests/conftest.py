@@ -1,8 +1,12 @@
 """Test configuration: run the whole suite on a virtual 8-device CPU mesh
-with float64 enabled, so multi-chip sharding paths compile and execute
-without TPU hardware (SURVEY.md §4 — the reference's tests are serial; we
-add the missing distributed dimension by running the identical suite on the
-virtual mesh)."""
+with float64 enabled, so multi-device sharding paths compile and execute
+without accelerator hardware (SURVEY.md §4 — the reference's tests are
+serial; we add the missing distributed dimension by running the identical
+suite on the virtual mesh).
+
+``JAX_PLATFORMS`` (default ``cpu``) selects the backend; the tests marked
+``gpu`` need ``JAX_PLATFORMS=cuda,cpu`` on a machine with a GPU and skip
+elsewhere."""
 
 import os
 
@@ -12,7 +16,7 @@ os.environ["XLA_FLAGS"] = (
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np
@@ -41,6 +45,18 @@ def dtype_dp(request):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU (skips with a reason elsewhere)")
+
+
+@pytest.fixture
+def gpu():
+    """The first GPU device; skips the test when JAX has none (decided at
+    run time, never at import, so every worker collects the same tests)."""
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX's first device is {devs[0].platform}")
+    return devs[0]
 
 
 @pytest.fixture(autouse=True, scope="module")

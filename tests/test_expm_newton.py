@@ -233,8 +233,8 @@ def test_newton_target_tol_recheck():
 
 def test_auto_instrumentation_counters_and_timers():
     """gmres/eigs/cg record per-operator matvec counts and named timers
-    WITHOUT user opt-in (VERDICT r1 item 4; reference:
-    AbstractLinops.fypp:390-424 counting, Timer.fypp self-timing)."""
+    WITHOUT user opt-in (reference: AbstractLinops.fypp:390-424 counting,
+    Timer.fypp self-timing)."""
     from lightkrylov_tpu.models import Poisson2D, TridiagToeplitz
     from lightkrylov_tpu.utils import timer as tm
 

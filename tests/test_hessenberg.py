@@ -329,8 +329,8 @@ def test_fused_sweep_check_stride(rng):
 
 
 # ---------------------------------------------------------------------------
-# Round 5: device Schur + ordschur (VERDICT r4 item 2), IRAM failure
-# surfacing (item 3), adaptive cadence (item 7), final f64 recheck (item 1)
+# Device Schur + ordschur, IRAM failure surfacing, adaptive cadence,
+# final f64 recheck
 # ---------------------------------------------------------------------------
 
 from lightkrylov_tpu.utils.hessenberg import ordschur_device, schur_real
@@ -435,7 +435,7 @@ def test_krylov_schur_device_matches_host(arrow, rng):
 
 def test_eigs_custom_selector_device_no_host_lapack(rng, monkeypatch):
     """eigs with a custom selector in device mode restarts through the
-    device Schur path — host LAPACK is never touched (VERDICT r4 item 2) —
+    device Schur path — host LAPACK is never touched —
     and matches the host path's eigenvalues."""
     from lightkrylov_tpu.models import TridiagToeplitz, toeplitz_eigvals
     from lightkrylov_tpu.utils import linalg as _linalg
@@ -473,8 +473,7 @@ def test_eigs_custom_selector_device_no_host_lapack(rng, monkeypatch):
 def test_eigs_device_resume_arrow_checkpoint(tmp_path, rng, monkeypatch):
     """Resume from a checkpoint holding the ARROW form: the device driver
     detects it (h_is_hessenberg False) and restarts through the device
-    Schur path — no host LAPACK (VERDICT r4 item 2 'resume-from-arrow
-    stays on device')."""
+    Schur path — no host LAPACK."""
     from lightkrylov_tpu.models import TridiagToeplitz, toeplitz_eigvals
     from lightkrylov_tpu.utils import linalg as _linalg
 
@@ -514,8 +513,7 @@ def test_eigs_device_resume_arrow_checkpoint(tmp_path, rng, monkeypatch):
 def test_iram_failure_reroutes_to_schur_restart(rng, monkeypatch):
     """Two consecutive truncation-only IRAM restarts (ok=False) reroute the
     device driver to the Schur-reorder restart path, with a warning per
-    failure (VERDICT r4 item 3 / ADVICE r4: the flag was silently
-    discarded)."""
+    failure."""
     import importlib
 
     eigs_mod = importlib.import_module("lightkrylov_tpu.solvers.eigs")
@@ -549,7 +547,7 @@ def test_iram_failure_reroutes_to_schur_restart(rng, monkeypatch):
 def test_adaptive_stride_selection():
     """The adaptive device-check cadence picks a long stride when matvecs
     are cheap relative to the projected solve and per-step checks when the
-    matvec dominates (VERDICT r4 item 7)."""
+    matvec dominates."""
     from lightkrylov_tpu.solvers.eigs import _AdaptiveStride
 
     # cheap matvec (t_step 0.5 ms) vs expensive check (20 ms)
@@ -582,8 +580,7 @@ def test_adaptive_stride_selection():
 def test_final_recheck_sharpens_f32_floor(rng):
     """f32 device path with a tolerance below the f32 projected-residual
     floor (~eps_f32 * sigma_max): without the final f64 host recheck the
-    solver reports non-convergence; the recheck settles it (VERDICT r4
-    item 1 — the flagship's svds/GL flag flapping)."""
+    solver reports non-convergence; the recheck settles it."""
     m = 48
     # well-separated spectrum scaled so the f32 projected-residual floor
     # (~eps_f32 * coupling ~ 1e-4) sits well ABOVE the tolerance

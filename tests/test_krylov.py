@@ -76,7 +76,7 @@ def test_qr_breakdown_replacement(key, dtype):
 
 
 def test_cholesky_qr2(key, dtype):
-    """CholeskyQR2: Q orthonormal + exact reconstruction (TPU-first
+    """CholeskyQR2: Q orthonormal + exact reconstruction (matmul-based
     tall-skinny QR; no reference counterpart)."""
     from lightkrylov_tpu.krylov import cholesky_qr2
 
@@ -299,7 +299,7 @@ def test_bidiagonalization_identity(key, dtype, rng):
 def test_nan_sanitization_qr_arnoldi():
     """A NaN entering the factorization must surface as a *fatal* negative
     info, not silently pass the `beta < tol` breakdown branch (reference:
-    qr.fypp:72-78,139-145 stops on isnan; VERDICT r1 missing item 6)."""
+    qr.fypp:72-78,139-145 stops on isnan)."""
     import pytest
     from lightkrylov_tpu.krylov.qr import qr, qr_pivoted
     from lightkrylov_tpu.krylov.arnoldi import arnoldi, initialize_arnoldi
@@ -354,7 +354,7 @@ def test_nan_sanitization_lanczos_bidiag():
 
 
 def test_arnoldi_block_dynamic_kstart():
-    """Block Arnoldi accepts *traced* kstart/kend (VERDICT r1 weak item 4):
+    """Block Arnoldi accepts *traced* kstart/kend:
     one executable serves every restart cycle, and incremental growth
     matches the one-shot factorization."""
     from lightkrylov_tpu.krylov.arnoldi import arnoldi_block

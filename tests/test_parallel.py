@@ -186,44 +186,23 @@ def test_sharded_gl_matches_serial(mesh):
     assert np.allclose(a2, b2, atol=1e-12)
 
 
-# -- kernel tier composed with the mesh tier (VERDICT r1 missing item 1) ------
-
-
-def test_sharded_pallas_stencil_matches_serial(mesh):
-    """shard_map + Pallas stencil kernel (interpret) == serial stencil:
-    the halo rows arriving over ppermute are folded in as rank-1
-    corrections after the zero-Dirichlet local kernel."""
-    nx, ny = 32, 64
+@pytest.mark.parametrize("nx,ny", [(32, 64), (32, 256)])
+def test_sharded_stencil_f32_matches_serial(mesh, nx, ny):
+    """f32 sharded stencil == serial stencil with several local rows per
+    device, and the output keeps its row partitioning (no gather)."""
     rng = np.random.default_rng(7)
     u = rng.standard_normal((ny, nx)).astype(np.float32)
     serial = Poisson2D(nx, ny, dtype=jnp.float32)
-    sharded = ShardedPoisson2D(nx, ny, mesh=mesh, dtype=jnp.float32,
-                               kernel="pallas", interpret=True)
+    sharded = ShardedPoisson2D(nx, ny, mesh=mesh, dtype=jnp.float32)
     ud = distribute(jnp.asarray(u), mesh, P(mesh.axis_names[0], None))
     out_s = np.asarray(serial.matvec(jnp.asarray(u)))
-    out_d = np.asarray(jax.jit(sharded.matvec)(ud))
-    assert np.linalg.norm(out_s - out_d) < 1e-6 * np.linalg.norm(out_s)
-    # sharding preserved (no accidental gather)
     out = jax.jit(sharded.matvec)(ud)
+    assert np.linalg.norm(out_s - np.asarray(out)) < 1e-6 * np.linalg.norm(out_s)
     assert out.sharding.spec == P(mesh.axis_names[0], None)
 
 
-def test_sharded_pallas_stencil_multitile(mesh):
-    """Local shard spanning several kernel tiles (grid > 1 per device)."""
-    nx, ny = 32, 256  # 32 local rows per device; tile=16 -> 2 grid steps
-    rng = np.random.default_rng(8)
-    u = rng.standard_normal((ny, nx)).astype(np.float32)
-    serial = Poisson2D(nx, ny, dtype=jnp.float32)
-    sharded = ShardedPoisson2D(nx, ny, mesh=mesh, dtype=jnp.float32,
-                               kernel="pallas", tile=16, interpret=True)
-    ud = distribute(jnp.asarray(u), mesh, P(mesh.axis_names[0], None))
-    out_s = np.asarray(serial.matvec(jnp.asarray(u)))
-    out_d = np.asarray(jax.jit(sharded.matvec)(ud))
-    assert np.linalg.norm(out_s - out_d) < 1e-6 * np.linalg.norm(out_s)
-
-
 def _random_bell(nbr, nbc, width, bm=8, bn=128, seed=0):
-    from lightkrylov_tpu.ops.pallas.spmv import BellMatrix
+    from lightkrylov_tpu.ops import BellMatrix
 
     rng = np.random.default_rng(seed)
     cols = np.zeros((nbr, width), np.int32)
@@ -241,13 +220,13 @@ def _random_bell(nbr, nbc, width, bm=8, bn=128, seed=0):
 
 
 def test_sharded_bell_matvec_matches_dense(mesh):
-    """Row-partitioned Block-ELL SpMV (all-gather + local Pallas kernel)
+    """Row-partitioned Block-ELL SpMV (all-gather + local Block-ELL product)
     == dense oracle; output stays row-partitioned."""
     from lightkrylov_tpu.parallel import ShardedBellOperator
 
     nbr, nbc, width = 64, 4, 3   # 512 x 512, 8 block-rows per device
     bell, dense = _random_bell(nbr, nbc, width, seed=11)
-    op = ShardedBellOperator(bell, mesh=mesh, interpret=True)
+    op = ShardedBellOperator(bell, mesh=mesh)
     rng = np.random.default_rng(12)
     x = rng.standard_normal(512).astype(np.float32)
     xd = distribute(jnp.asarray(x), mesh, P(mesh.axis_names[0]))
@@ -265,7 +244,7 @@ def test_sharded_bell_rmatvec_matches_dense(mesh):
 
     nbr, nbc, width = 64, 4, 3
     bell, dense = _random_bell(nbr, nbc, width, seed=13)
-    op = ShardedBellOperator(bell, mesh=mesh, interpret=True)
+    op = ShardedBellOperator(bell, mesh=mesh)
     rng = np.random.default_rng(14)
     y = rng.standard_normal(512).astype(np.float32)
     yd = distribute(jnp.asarray(y), mesh, P(mesh.axis_names[0]))
@@ -277,7 +256,7 @@ def test_sharded_bell_rmatvec_matches_dense(mesh):
 def test_gmres_on_sharded_bell(mesh):
     """End-to-end: GMRES on the sharded Block-ELL operator (diagonally
     dominated so it converges fast)."""
-    from lightkrylov_tpu.ops.pallas.spmv import BellMatrix
+    from lightkrylov_tpu.ops import BellMatrix
     from lightkrylov_tpu.parallel import ShardedBellOperator
 
     nbr, nbc, width = 64, 4, 4  # every block column present in every row
@@ -295,7 +274,7 @@ def test_gmres_on_sharded_bell(mesh):
             blocks[i, k, r, gc] += 50.0
     bell2 = BellMatrix(jnp.asarray(blocks), jnp.asarray(cols), (512, 512),
                        nnz=blocks.size)
-    op = ShardedBellOperator(bell2, mesh=mesh, interpret=True)
+    op = ShardedBellOperator(bell2, mesh=mesh)
     rng = np.random.default_rng(16)
     b = rng.standard_normal(512).astype(np.float32)
     bd = distribute(jnp.asarray(b), mesh, P(mesh.axis_names[0]))
@@ -304,7 +283,7 @@ def test_gmres_on_sharded_bell(mesh):
     assert np.linalg.norm(r) < 1e-3
 
 
-# -- solver coverage on the mesh beyond cg/gmres/eighs (VERDICT r1 weak 5) ----
+# -- solver coverage on the mesh beyond cg/gmres/eighs ----
 
 
 def test_eigs_with_restart_on_sharded_gl(mesh):
@@ -447,7 +426,7 @@ def test_gmres_large_kdim_prefix_on_sharded(mesh):
 def test_eighs_checkpoint_resume_sharded(mesh, tmp_path):
     """Checkpoint/resume with a *sharded* operator: load_checkpoint restores
     the saved basis with the template's NamedSharding, and the resumed run
-    reproduces the uninterrupted one (VERDICT r3 item 7)."""
+    reproduces the uninterrupted one."""
     nx, ny = 16, 32
     sharded = ShardedPoisson2D(nx, ny, mesh=mesh, dtype=jnp.float64)
     exact = np.sort(poisson2d_eigvals(nx, ny))[::-1]
