@@ -789,7 +789,7 @@ def main(argv=None) -> int:
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": devs[0].platform, "kind": devs[0].device_kind,
-        "count": len(devs)}}))
+        "count": n_dev}}))
     return 0
 
 

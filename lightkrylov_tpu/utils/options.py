@@ -82,8 +82,9 @@ class EigsOptions:
     #: reference's path, IterativeSolvers.fypp:1065); "device" = jitted
     #: Francis QR + inverse-iteration eigvecs (utils/hessenberg.py) fused
     #: into the Arnoldi sweep — per-STEP convergence checks at zero host
-    #: round-trips (real dtypes only); "auto" = device on any
-    #: accelerator, host on the CPU.  Device mode also runs every RESTART on device: the
+    #: round-trips (real dtypes only); "auto" = device for eighs on any
+    #: accelerator, host on the CPU, and host for eigs on every platform
+    #: (ROADMAP A2).  Device mode also runs every RESTART on device: the
     #: IRAM exact-shift filter for the default selector, the jitted
     #: Schur + ordschur path (schur_real/ordschur_device) for custom
     #: selectors and the post-restart arrow form; host LAPACK remains the

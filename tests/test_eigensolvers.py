@@ -351,19 +351,23 @@ def test_svds_checkpoint_resume(tmp_path):
     assert m_res.n_iter == m_full.n_iter
 
 
-@pytest.mark.parametrize("mode,platform,dt,expected", [
-    ("auto", "gpu", np.float32, True),
-    ("auto", "gpu", np.float64, True),
-    ("auto", "cpu", np.float64, False),
-    ("auto", "gpu", np.complex128, False),
-    ("device", "cpu", np.float64, True),
-    ("host", "gpu", np.float64, False),
-    ("device", "gpu", np.complex64, False),
+@pytest.mark.parametrize("mode,symmetric,platform,dt,expected", [
+    ("auto", True, "gpu", np.float32, True),
+    ("auto", True, "gpu", np.float64, True),
+    ("auto", True, "cpu", np.float64, False),
+    ("auto", False, "gpu", np.float64, False),
+    ("auto", False, "cpu", np.float32, False),
+    ("auto", True, "gpu", np.complex128, False),
+    ("device", False, "cpu", np.float64, True),
+    ("host", True, "gpu", np.float64, False),
+    ("device", True, "gpu", np.complex64, False),
 ])
-def test_device_projected_rule(mode, platform, dt, expected):
-    """``projected="auto"`` takes the device path on any accelerator and the
-    host path on the CPU; explicit modes win; complex is always host."""
+def test_device_projected_rule(mode, symmetric, platform, dt, expected):
+    """``projected="auto"`` takes the device path for the symmetric
+    problems of eighs/svds on any accelerator and the host path on the CPU;
+    eigs' non-symmetric problem is host everywhere; explicit modes win;
+    complex is always host."""
     from lightkrylov_tpu.solvers.eigs import _device_projected
 
     opts = lk.EigsOptions(projected=mode)
-    assert _device_projected(opts, dt, platform=platform) is expected
+    assert _device_projected(opts, dt, symmetric, platform=platform) is expected
